@@ -1,12 +1,13 @@
-"""lidar_slam_tpu — a TPU-native 2D lidar SLAM framework (JAX/XLA/Pallas/pjit).
+"""lidar_slam_tpu — a 2D lidar SLAM framework in JAX (jit, vmap, shard_map).
 
 A from-scratch re-design of the capabilities of the reference project
 ``circuitpotato/Hardware-Acceleration-of-LIDAR-SLAM`` (correlative scan-to-map
 matching over a clamped Euclidean-distance-transform likelihood field; see
-``/root/reference/Subsystem_1/main.c`` for the canonical C pipeline), built
-TPU-first:
+``Subsystem_1/main.c`` for the canonical C pipeline), built for an
+accelerator:
 
-- the EDT and scan-match scoring run as fused Pallas kernels (``ops/``),
+- the EDT and scan-match scoring are fixed-shape jnp programs that XLA
+  fuses (``ops/``),
 - the full SLAM step is a single fixed-shape jitted function that can be
   driven by ``lax.scan`` over the whole dataset with zero host round-trips,
 - thousands of particles run as vmapped batched computation with systematic
@@ -17,7 +18,7 @@ TPU-first:
 Subpackages
 -----------
 core      sensor model, SE(2) geometry, occupancy grids
-ops       EDT + scan matching (jnp oracles and Pallas kernels)
+ops       EDT, correlation volume, scan matching
 models    scan-matcher pipeline, FastSLAM particle filter, pose graph
 parallel  device meshes, sharded pipelines, distributed resampling
 io        dataset synthesis, CSV loading, streaming scan server

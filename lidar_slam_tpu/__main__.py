@@ -361,6 +361,9 @@ def main(argv=None) -> int:
     sp.set_defaults(fn=cmd_serve)
 
     args = p.parse_args(argv)
+    from lidar_slam_tpu.utils import compile_cache
+
+    compile_cache.enable()
     return args.fn(args)
 
 

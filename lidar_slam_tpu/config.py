@@ -59,9 +59,10 @@ class MatcherConfig:
     # center-bias penalty (summed-EDT px) per L1 step of candidate offset
     # beyond the inner 3x3x3 — suppresses corridor-aliased far matches and
     # near-tie nondeterminism; no effect at window 1 (ops/matching.fast_match).
-    # Swept on building-3800: 4.0 gives ATE 0.092 m with CPU and TPU
-    # trajectories agreeing exactly; 0.25 leaves one-ulp backend divergence
-    # (0.072 TPU / 0.233 CPU); 0 allows meter-scale corridor excursions.
+    # Swept on building-3800: 4.0 gives ATE 0.092 m with trajectories that
+    # agree exactly across backends; 0.25 leaves one-ulp backend divergence
+    # (0.072 vs 0.233 m on two backends); 0 allows meter-scale corridor
+    # excursions.
     window_penalty_px: float = 4.0
 
 
@@ -179,9 +180,9 @@ BUILDING_CONFIG = SlamConfig(
 # reference's +-1 matcher window for bit-exact oracle parity — and diverges
 # exactly like the oracle does, ATE ~5.3 m over the 3800-scan tour). A
 # +-2-step search window per matcher stage is enough to keep the frontend
-# locked through the fast corridor turns the +-1 window loses: ATE 0.092 m at
-# ~195 scans/s on one v5e chip (identical trajectory on CPU and TPU with the
-# default center-bias penalty). Wider windows hurt (window 3: 1.4 m, window
+# locked through the fast corridor turns the +-1 window loses: ATE 0.092 m
+# (an identical trajectory on every backend measured, with the default
+# center-bias penalty). Wider windows hurt (window 3: 1.4 m, window
 # 4: 5.2 m — long-range candidates alias to parallel walls), so the window is
 # a precision instrument, not a "more is better" knob.
 BUILDING_WIDE_CONFIG = dataclasses.replace(

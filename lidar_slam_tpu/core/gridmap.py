@@ -7,7 +7,7 @@ Capability parity with the reference:
   margin, ``Sgrid = roundf(extent/pixel)+1`` cells, one-hot scatter of every
   local-map point (``OccupationalGrid``, main.c:271-363)
 
-TPU-native design: everything is fixed-shape. The point map is a capacity-CAP
+Design: everything is fixed-shape. The point map is a capacity-CAP
 buffer plus a size scalar; the local map is a *mask* over that buffer (no
 compaction — scatter order is irrelevant for a one-hot raster); the grids are
 fixed (200,200)/(400,400) arrays with a dynamic valid region (rows, cols).

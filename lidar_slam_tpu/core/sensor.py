@@ -5,7 +5,7 @@ Capability parity with reference ``Subsystem_1/main.c``:
 - ``readAScan`` (main.c:71-95): range gating + polar->cartesian with
   *compaction* (valid points packed to the front, ``scan.size`` count).
 
-TPU-native design: no data-dependent compaction under jit. A scan is always a
+Design: no data-dependent compaction under jit. A scan is always a
 fixed-shape ``(n_beams,)`` family of arrays plus a validity mask. Where the
 reference's compacted ordering is behaviorally observable (the bestHits/scan
 index interplay in map updates, main.c:941-948), we reproduce it with

@@ -4,7 +4,7 @@ The reference's global map is one append-only 20k-point buffer
 (``Subsystem_1/main.c:123-145``) — it saturates after a few hundred meters of
 trajectory and a loop closure cannot move already-inserted points. This module
 replaces it with an *atlas* of fixed-capacity submaps (the Cartographer-style
-design, TPU-native):
+design, in fixed shapes):
 
 - each submap stores its points in its **anchor frame**; the anchor's world
   pose is a separate (3,) leaf. A pose-graph correction therefore moves a

@@ -7,9 +7,9 @@ kept compatible: ``GET /?param=N`` returns scan row N as a JSON float array;
 ``param=9000`` returns the rendered map PNG; ``pose_x``/``pose_y`` query keys
 are accepted (and logged) like the ESP32 firmware does.
 
-On the TPU side the client is a prefetching iterator feeding the host->device
-pipeline (the "edge offload" split maps to host CPU <-> TPU: cheap ingest on
-the host, heavy math on the chip).
+On the device side the client is a prefetching iterator feeding the
+host->device pipeline (the "edge offload" split maps to host CPU <-> GPU:
+cheap ingest on the host, heavy math on the device).
 """
 
 from __future__ import annotations

@@ -13,11 +13,11 @@ Gauss-Newton iteration by eliminating the landmarks first:
     dp = solve(S, bp - Hpl Hll^-1 bl)
     dl = Hll^-1 (bl - Hlp dp)          (back-substitution)
 
-TPU-native structure: ``Hll`` is block-diagonal 2x2 (landmarks are
+Structure: ``Hll`` is block-diagonal 2x2 (landmarks are
 independent given poses) so its inverse is a closed-form batched op; all
 factor residuals/Jacobians come from one vmapped ``jacfwd``; the block
 products are einsums feeding scatter-adds; the only dense solve is the
-(3K, 3K) reduced system on the MXU. Fixed capacities + masks throughout.
+(3K, 3K) reduced system. Fixed capacities + masks throughout.
 
 Observation convention matches ``models/ekf_slam.py``: reference-convention
 poses, z = (range, bearing) with bearing = atan2(dy, dx) + theta.
@@ -32,6 +32,9 @@ import jax
 import jax.numpy as jnp
 
 from lidar_slam_tpu.core import se2
+
+# f32 contractions run at full precision on every backend (no TF32)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class BAProblem(NamedTuple):
@@ -96,11 +99,11 @@ def optimize_ba(p: BAProblem, iters: int = 10, damping: float = 1e-3) -> BAProbl
         (ji, jj) = odo_jac(xi, xj, p.odo_z)
         ro = odo_res(xi, xj, p.odo_z)
         wo = p.odo_w * p.odo_active[:, None]
-        h_ii = jnp.einsum("eab,ea,eac->ebc", ji, wo, ji)
-        h_jj = jnp.einsum("eab,ea,eac->ebc", jj, wo, jj)
-        h_ij = jnp.einsum("eab,ea,eac->ebc", ji, wo, jj)
-        b_i = jnp.einsum("eab,ea,ea->eb", ji, wo, ro)
-        b_j = jnp.einsum("eab,ea,ea->eb", jj, wo, ro)
+        h_ii = jnp.einsum("eab,ea,eac->ebc", ji, wo, ji, precision=HIGHEST)
+        h_jj = jnp.einsum("eab,ea,eac->ebc", jj, wo, jj, precision=HIGHEST)
+        h_ij = jnp.einsum("eab,ea,eac->ebc", ji, wo, jj, precision=HIGHEST)
+        b_i = jnp.einsum("eab,ea,ea->eb", ji, wo, ro, precision=HIGHEST)
+        b_j = jnp.einsum("eab,ea,ea->eb", jj, wo, ro, precision=HIGHEST)
 
         hpp = jnp.zeros((kmax, kmax, 3, 3), jnp.float32)
         hpp = hpp.at[p.odo_i, p.odo_i].add(h_ii, mode="drop")
@@ -117,11 +120,16 @@ def optimize_ba(p: BAProblem, iters: int = 10, damping: float = 1e-3) -> BAProbl
         (jp_, jl) = obs_jac(xo, lo, p.obs_z)          # (F,2,3), (F,2,2)
         rv = obs_res(xo, lo, p.obs_z)                 # (F,2)
         wv = p.obs_w * p.obs_active[:, None]          # (F,2)
-        hpp_o = jnp.einsum("fab,fa,fac->fbc", jp_, wv, jp_)   # (F,3,3)
-        hll_o = jnp.einsum("fab,fa,fac->fbc", jl, wv, jl)     # (F,2,2)
-        hpl_o = jnp.einsum("fab,fa,fac->fbc", jp_, wv, jl)    # (F,3,2)
-        bp_o = jnp.einsum("fab,fa,fa->fb", jp_, wv, rv)       # (F,3)
-        bl_o = jnp.einsum("fab,fa,fa->fb", jl, wv, rv)        # (F,2)
+        hpp_o = jnp.einsum("fab,fa,fac->fbc", jp_, wv, jp_,
+                           precision=HIGHEST)             # (F,3,3)
+        hll_o = jnp.einsum("fab,fa,fac->fbc", jl, wv, jl,
+                           precision=HIGHEST)             # (F,2,2)
+        hpl_o = jnp.einsum("fab,fa,fac->fbc", jp_, wv, jl,
+                           precision=HIGHEST)             # (F,3,2)
+        bp_o = jnp.einsum("fab,fa,fa->fb", jp_, wv, rv,
+                          precision=HIGHEST)              # (F,3)
+        bl_o = jnp.einsum("fab,fa,fa->fb", jl, wv, rv,
+                          precision=HIGHEST)              # (F,2)
 
         hpp = hpp.at[p.obs_i, p.obs_i].add(hpp_o, mode="drop")
         bp = bp.at[p.obs_i].add(bp_o, mode="drop")
@@ -140,11 +148,13 @@ def optimize_ba(p: BAProblem, iters: int = 10, damping: float = 1e-3) -> BAProbl
         # (pose, landmark) blocks are scatter-added into U (L, K, 3, 2);
         # the correction folds over the landmark axis as one einsum
         # (block-diagonal Hll^-1 in the middle). For SLAM-scale K, L this
-        # is a few-MB tensor and MXU-shaped contractions.
+        # is a few-MB tensor and dense contractions.
         u = jnp.zeros((lmax, kmax, 3, 2), jnp.float32)
         u = u.at[p.obs_j, p.obs_i].add(hpl_o, mode="drop")
-        s_corr = jnp.einsum("lkab,lbc,lmdc->kmad", u, hll_inv, u)
-        bp_corr = jnp.einsum("lkab,lbc,lc->ka", u, hll_inv, bl)
+        s_corr = jnp.einsum("lkab,lbc,lmdc->kmad", u, hll_inv, u,
+                            precision=HIGHEST)
+        bp_corr = jnp.einsum("lkab,lbc,lc->ka", u, hll_inv, bl,
+                             precision=HIGHEST)
 
         s_blocks = hpp - s_corr
         b_red = bp - bp_corr
@@ -159,8 +169,8 @@ def optimize_ba(p: BAProblem, iters: int = 10, damping: float = 1e-3) -> BAProbl
         dp = jnp.linalg.solve(s, -bf).reshape(kmax, 3)
         dp = dp * p.pose_active[:, None]
         # back-substitute landmarks: dl = Hll^-1 (-bl - Hlp dp)
-        hlp_dp = jnp.einsum("lkba,kb->la", u, dp)
-        dl = jnp.einsum("lab,lb->la", hll_inv, -bl - hlp_dp)
+        hlp_dp = jnp.einsum("lkba,kb->la", u, dp, precision=HIGHEST)
+        dl = jnp.einsum("lab,lb->la", hll_inv, -bl - hlp_dp, precision=HIGHEST)
         dl = dl * p.lm_active[:, None]
 
         new_poses = poses + dp

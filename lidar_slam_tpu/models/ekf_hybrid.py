@@ -18,12 +18,12 @@ lookups. The landmark term is the existing (P, L)-batched 2x2 EKF bank.
 The shared occupancy map follows the reference's keyframe mini-update rule
 (``main.c:928-961``) exactly as the grid PF does.
 
-TPU shape: everything in the step is (P,)-leading batched arithmetic; the
+Shape: everything in the step is (P,)-leading batched arithmetic; the
 whole run is one ``lax.scan`` over scans with detections and scan odometry
 precomputed in batched pre-passes.
 
 Measured (CPU, 2026-08-21): museum-1000 full tour ATE 0.081 m at P=1024
-(landmark-only: 0.785 m, BENCH_r04) — the grid term carries the filter
+(landmark-only: 0.785 m) — the grid term carries the filter
 through the landmark-poor room transition from scan ~300.
 
 Known regime limit: in the synthetic office CORRIDOR world (long straight
@@ -145,7 +145,7 @@ def hybrid_step(state: HybridState, ranges: jnp.ndarray, obs: jnp.ndarray,
         local = gridmap.extract_local_map(pmap, wx, wy, scan.valid,
                                           g.border_size)
         _, fine = gridmap.rasterize_dual(local, g)
-        fm = edt_ops.edt(fine.occ, int(g.max_dist_px))
+        fm = edt_ops.edt_clamped(fine.occ, int(g.max_dist_px))
         return pmap, fine, fm, jnp.bool_(True)
 
     def keep(_):

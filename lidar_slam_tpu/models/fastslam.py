@@ -1,14 +1,15 @@
-"""Grid-based Rao-Blackwellized particle filter (FastSLAM-style), TPU-first.
+"""Grid-based Rao-Blackwellized particle filter (FastSLAM-style).
 
 The reference is a single-hypothesis matcher (SURVEY §0: no particle filter in
 its code); the particle layer is the north-star extension from BASELINE.json
 ("1k particles, vmapped per-particle updates + batched importance weighting").
 
-TPU-native design decisions:
+Design decisions:
 - Particles are a leading batch axis, nothing else. Propagation, (optional)
-  per-particle correlative refinement, and importance weighting are pure
-  broadcasted tensor ops — a (P*27, N) gather against the VMEM-resident EDT
-  likelihood field, no per-particle control flow.
+  per-particle gradient refinement, and importance weighting are pure
+  broadcasted tensor ops — trilinear lookups into one correlation volume of
+  the EDT likelihood field (ops/correlative.py), no per-particle control
+  flow.
 - The occupancy/likelihood grid is *shared* (rebuilt from the best particle on
   keyframe steps, same mini-update rule as the reference, main.c:928-961);
   per-particle landmark EKF maps live in ``models/ekf_slam.py``.
@@ -76,8 +77,8 @@ def systematic_resample(key: jnp.ndarray, logw: jnp.ndarray) -> jnp.ndarray:
 
     The inverse-CDF lookup is a compare-count (idx_i = #{j : c_j < u_i},
     identical to ``searchsorted(c, u, side='left')``) — a (P, P) compare +
-    row-sum the VPU chews through in microseconds, where searchsorted's
-    binary search lowers to ~log2(P) serial gather rounds on TPU."""
+    row-sum: one fused elementwise pass instead of ~log2(P) dependent
+    gather rounds of a binary search."""
     p = logw.shape[0]
     w = jax.nn.softmax(logw)
     c = jnp.cumsum(w)
@@ -101,7 +102,7 @@ def pf_step(state: ParticleState, ranges: jnp.ndarray, cfg: SlamConfig,
     (parallel/sharded_edt.py) so the likelihood field computes across the
     mesh's 'map' dimension."""
     if edt_fn is None:
-        edt_fn = edt_ops.edt
+        edt_fn = edt_ops.edt_clamped
     pc, g, m, mc = cfg.particles, cfg.grid, cfg.map, cfg.matcher
     p = pc.n_particles
     scan = sensor.read_scan(ranges, angles, cfg.lidar)

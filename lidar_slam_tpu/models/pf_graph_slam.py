@@ -103,7 +103,7 @@ def _reraster(pmap, kf_x, kf_y, kf_valid, kf_pose, cfg: SlamConfig):
     local = gridmap.extract_local_map(pmap, wx, wy, kf_valid,
                                       cfg.grid.border_size)
     _, fine = gridmap.rasterize_dual(local, cfg.grid)
-    fm = edt_ops.edt(fine.occ, int(cfg.grid.max_dist_px))
+    fm = edt_ops.edt_clamped(fine.occ, int(cfg.grid.max_dist_px))
     return fine, fm
 
 
@@ -114,13 +114,20 @@ class PFGraphSlam(GraphSlam):
     map can mis-register whole stretches, and the sharp-but-high-score
     weak anchors are what lets the graph pull a bent cluster back
     (building-3800: 0.94 -> 0.45 m ATE measured; the same tier is OFF for
-    tracking frontends, where it only adds noise — graph_slam.py)."""
+    tracking frontends, where it only adds noise — graph_slam.py).
+
+    The default chunk is 128 scans (vs the tracking frontends' 256):
+    halving the chunk doubles the closure/feedback cadence, so a
+    mis-registration gets corrected sooner — measured on building-3800: ATE
+    0.31 at chunk 128 vs 0.45 at 256 (chunk 64 measured 0.76 — the
+    mis-registration magnitude itself is chaotic in chunk size, so this is a
+    measured optimum, not a monotone knob)."""
 
     def __init__(self, cfg: SlamConfig,
                  lc: LoopClosureConfig | None = None,
                  max_keyframes: int = 512, seed: int = 0):
         if lc is None:
-            lc = LoopClosureConfig(weak_closures=True)
+            lc = LoopClosureConfig(weak_closures=True, chunk_size=128)
         super().__init__(cfg, lc, max_keyframes)
         self.frontend = _PFFrontend(seed)
 
@@ -164,21 +171,11 @@ class PFGraphSlam(GraphSlam):
 
 def run_pf_graph(ranges_all: np.ndarray, cfg: SlamConfig,
                  lc: LoopClosureConfig | None = None,
-                 max_keyframes: int = 512, seed: int = 0,
-                 chunk_size: int | None = None):
+                 max_keyframes: int = 512, seed: int = 0):
     """PF-frontend graph SLAM over a whole dataset.
 
     Returns (path (T, 3), optimized keyframe poses, the PFGraphSlam
-    instance — ``.closures`` carries the accepted loop closures).
-
-    Default TPU chunk is 128 (vs the tracking frontends' 256): halving the
-    chunk doubles the closure/feedback cadence, so a mis-registration gets
-    corrected sooner — measured on building-3800: ATE 0.31 at chunk 128 vs
-    0.45 at 256 (chunk 64 measured 0.76 — the mis-registration magnitude
-    itself is chaotic in chunk size, so this is a measured optimum, not a
-    monotone knob; wall cost ~equal at 128, +40 % at 64)."""
-    if chunk_size is None and jax.default_backend() == "tpu":
-        chunk_size = 128
+    instance — ``.closures`` carries the accepted loop closures)."""
     gs = PFGraphSlam(cfg, lc, max_keyframes, seed)
-    path, opt = gs.run(ranges_all, chunk_size=chunk_size)
+    path, opt = gs.run(ranges_all)
     return path, opt, gs

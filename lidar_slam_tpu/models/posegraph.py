@@ -1,7 +1,7 @@
 """SE(2) pose-graph backend: keyframe graph + Gauss-Newton optimization.
 
 North-star capability (BASELINE.json config 5; absent in the reference —
-SURVEY §0 "no loop closure, no pose graph"). TPU-native design:
+SURVEY §0 "no loop closure, no pose graph"). Design:
 
 - fixed-capacity graph (K_max nodes, E_max edges) with activity masks — the
   whole optimizer jits with static shapes;
@@ -9,7 +9,7 @@ SURVEY §0 "no loop closure, no pose graph"). TPU-native design:
   assembled into the dense normal matrix H (3K x 3K) by scatter-add;
 - damped Gauss-Newton (Levenberg) iterations under ``lax.fori_loop`` with a
   dense Cholesky/LU solve — for SLAM-scale K (hundreds of keyframes) the
-  (3K)^3 solve is MXU food, far below the EDT in cost. (The Schur-complement
+  (3K)^3 solve is far below the EDT in cost. (The Schur-complement
   block elimination for landmark-augmented BA lives in ``models/ba.py``.)
 - gauge fixed by a strong prior on node 0.
 """
@@ -23,6 +23,9 @@ import jax
 import jax.numpy as jnp
 
 from lidar_slam_tpu.core import se2
+
+# f32 contractions run at full precision on every backend (no TF32)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class PoseGraph(NamedTuple):
@@ -111,11 +114,11 @@ def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-4,
         # H and b accumulated blockwise via scatter-add into (K,K,3,3)/(K,3).
         wji = wmask[:, :, None] * ji                       # Omega @ Ji
         wjj = wmask[:, :, None] * jj
-        h_ii = jnp.einsum("eab,eac->ebc", ji, wji)
-        h_jj = jnp.einsum("eab,eac->ebc", jj, wjj)
-        h_ij = jnp.einsum("eab,eac->ebc", ji, wjj)
-        b_i = jnp.einsum("eab,ea->eb", ji, wmask * r)
-        b_j = jnp.einsum("eab,ea->eb", jj, wmask * r)
+        h_ii = jnp.einsum("eab,eac->ebc", ji, wji, precision=HIGHEST)
+        h_jj = jnp.einsum("eab,eac->ebc", jj, wjj, precision=HIGHEST)
+        h_ij = jnp.einsum("eab,eac->ebc", ji, wjj, precision=HIGHEST)
+        b_i = jnp.einsum("eab,ea->eb", ji, wmask * r, precision=HIGHEST)
+        b_j = jnp.einsum("eab,ea->eb", jj, wmask * r, precision=HIGHEST)
 
         hblocks = jnp.zeros((kmax, kmax, 3, 3), jnp.float32)
         hblocks = hblocks.at[g.edge_i, g.edge_i].add(h_ii, mode="drop")

@@ -1,6 +1,6 @@
 """The single-hypothesis scan-to-map SLAM pipeline (fidelity mode).
 
-This is the TPU re-design of the reference's whole program
+This is the accelerator re-design of the reference's whole program
 (``Subsystem_1/main.c:825-990``): per scan — gate/convert, keyframe-gated
 local-map raster + EDT, constant-velocity prediction, two-stage correlative
 matching (coarse grid then fine refine), mini-update rule appending novel
@@ -97,8 +97,8 @@ def slam_step(state: SlamState, ranges: jnp.ndarray, cfg: SlamConfig,
         local = gridmap.extract_local_map(state.pmap, wx, wy, scan.valid,
                                           g.border_size)
         coarse, fine = gridmap.rasterize_dual(local, g)
-        cm = edt_ops.edt(coarse.occ, int(g.max_dist_px))
-        fm = edt_ops.edt(fine.occ, int(g.max_dist_px))
+        cm = edt_ops.edt_clamped(coarse.occ, int(g.max_dist_px))
+        fm = edt_ops.edt_clamped(fine.occ, int(g.max_dist_px))
         return coarse, fine, cm, fm, wx, wy
 
     def keep(_):

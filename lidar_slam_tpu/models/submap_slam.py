@@ -1,6 +1,6 @@
 """Submap SLAM driver: the scan-to-map pipeline over a tiled submap atlas.
 
-Same per-scan structure as ``models/scan_matcher.py`` (the TPU re-design of
+Same per-scan structure as ``models/scan_matcher.py`` (the accelerator re-design of
 ``Subsystem_1/main.c:825-990``) but the global point map is a
 ``core.submap.SubmapAtlas`` instead of the reference's single 20k-point
 buffer: the matcher's local map is gathered from the K nearest submaps, novel
@@ -87,8 +87,8 @@ def slam_step(state: SubmapSlamState, ranges: jnp.ndarray, cfg: SlamConfig,
             state.atlas, state.pose, wx, wy, scan.valid,
             g.border_size, sm.k_nearest)
         coarse, fine = gridmap.rasterize_dual(local, g)
-        cm = edt_ops.edt(coarse.occ, int(g.max_dist_px))
-        fm = edt_ops.edt(fine.occ, int(g.max_dist_px))
+        cm = edt_ops.edt_clamped(coarse.occ, int(g.max_dist_px))
+        fm = edt_ops.edt_clamped(fine.occ, int(g.max_dist_px))
         return coarse, fine, cm, fm, wx, wy
 
     def keep(_):

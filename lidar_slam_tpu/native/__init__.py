@@ -11,7 +11,8 @@ provides:
 - ``read_csv``: fast dataset ingest (the production input path — numpy's
   loadtxt is ~20x slower on the 1000x1079 dump).
 
-Built on demand with g++ (no pybind11 in this image; plain ctypes ABI).
+Built from ``src/slam_core.cpp`` with g++ on first use (plain ctypes ABI);
+the library is a build output and is never committed.
 """
 
 from __future__ import annotations
@@ -30,9 +31,13 @@ _lib = None
 def _build() -> None:
     # -ffp-contract=off: keep multiply-add rounding identical to XLA:CPU so
     # trajectory parity tests can demand bit-exactness over long runs.
+    # Build to a private name and rename: concurrent first uses (test
+    # workers) never load a half-written library.
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-ffp-contract=off", "-shared",
-           "-fPIC", "-std=c++17", "-o", _LIB, _SRC]
+           "-fPIC", "-std=c++17", "-o", tmp, _SRC]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, _LIB)
 
 
 def get_lib() -> ctypes.CDLL:

@@ -1,6 +1,6 @@
 // Clean-room C++ implementation of the correlative scan-to-map SLAM pipeline.
 //
-// Role: the in-repo correctness & speed oracle for the TPU framework — the
+// Role: the in-repo correctness & speed oracle for the JAX framework — the
 // same role Subsystem_1/main.c plays for the reference project (see SURVEY.md
 // §2.2 N1). This is NOT a copy of the reference: it is written fresh from the
 // behavioral spec in SURVEY.md §3 with our own structure; it intentionally

@@ -1,95 +1,39 @@
-"""Correlation-volume scan scoring — the TPU-native scaling trick.
+"""Correlation-volume scan scoring.
 
 Problem: weighting P particles (x 27 candidates) against the EDT likelihood
-field is a (P*27*N)-point scalar gather; XLA TPU gathers run ~100 M/s, so 1k
-particles cost ~350 ms/scan — two orders of magnitude over budget.
+field directly is a (P*27*N)-point gather whose cost grows with the particle
+count.
 
 Design: all particles cluster around the predicted pose, so every lookup hits
 the field within a few pixels of a shared base projection. We therefore:
 
 1. project the scan once per theta-bin around the base pose (T bins, step =
    the fine matcher resolution);
-2. extract, for every beam, a (W, W) window of the field centered at its base
-   cell — as a *row-slab gather* (rows are contiguous lanes; cheap) followed
-   by a banded one-hot matmul on the MXU for the column select (no scalar
-   gathers anywhere);
-3. sum windows over beams into a score volume C[t, dy, dx] (and an in-bounds
-   count volume) — C is exactly "score of the scan shifted by (dy, dx) cells
-   at theta-bin t";
-4. score any continuous candidate pose by *trilinear interpolation* into C.
+2. gather, for every beam, the (W, W) window of the field centered at its
+   base cell, and sum the windows over beams into a score volume
+   C[t, dy, dx] (plus an in-bounds count volume) — C is exactly "score of
+   the scan shifted by (dy, dx) cells at theta-bin t";
+3. score any continuous candidate pose by *trilinear interpolation* into C.
    Interpolation commutes with the per-beam sum, so this equals per-beam
    bilinear field sampling — smoother than the reference's roundf cell
    snapping (main.c:483-501) and with a usable gradient, at O(T*N*W^2)
    cost independent of particle count.
 
-The per-pose lookup cost is 8 small-table gathers per particle (~2.6k-entry
-table), so 10k particles weight in well under a millisecond.
+The field values sit on the 2^-10 lattice (``edt.quantize_metric``), so the
+f32 per-beam sums are exact in any summation order: the volume is identical
+on every backend.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import jax.numpy as jnp
-
 import jax
+import jax.numpy as jnp
 
 from lidar_slam_tpu.core.gridmap import OccGrid, roundf_like
 
-
-def _volume_pallas(metric, grid: OccGrid, cx0, cy0, valid, half: int):
-    """Histogram + fused correlation kernel (see ops/pallas_match.py).
-
-    The per-beam window sum commutes into cell space: scatter the beams'
-    base cells into a per-bin histogram, then correlate it with the masked
-    field over all (dy, dx) offsets. Zero-padding by ``half`` keeps beams
-    whose base cell falls just outside the fixed array (the jnp path keeps
-    them via clamped row gathers + masks)."""
-    from lidar_slam_tpu.ops import pallas_match
-
-    rp = pallas_match.row_pad(half)
-    cp = pallas_match.col_pad(half)
-    rchunk = pallas_match.ROWS_PER_CHUNK
-    t, n = cx0.shape
-    s = metric.shape[0]
-    # kernel layout: content at [rp:, cp:]; row extent a multiple of the
-    # kernel's chunk size, with an rp-row tail so superset loads stay in-array
-    n_chunks = (s + rchunk - 1) // rchunk
-    sp_r = 2 * rp + n_chunks * rchunk
-    # lane-aligned, with >= half zero columns on the right so rolls wrap zeros
-    sp_c = ((cp + s + half + 127) // 128) * 128
-    row = jax.lax.broadcasted_iota(jnp.int32, (s, s), 0)
-    col = jax.lax.broadcasted_iota(jnp.int32, (s, s), 1)
-    # reference bounds test (main.c:512): 0-based cell in [1, n-2]
-    ind = ((row >= 1) & (row < grid.n_rows - 1)
-           & (col >= 1) & (col < grid.n_cols - 1)).astype(jnp.float32)
-    metric_pad = jnp.zeros((sp_r, sp_c), jnp.float32).at[rp:rp + s,
-                                                         cp:cp + s].set(metric * ind)
-
-    # hist[t] = R_t^T @ C_t with R/C one-hot row/col indicators — the MXU
-    # builds the histogram ~3x faster than a (T*N)-update scatter (the TPU
-    # scatter unit is the bottleneck, not FLOPs). Accumulation is f32, the
-    # one-hot products are exact, so this equals the scatter bit-for-bit.
-    # out-of-range cells match no one-hot lane = the scatter's mode="drop"
-    rows_oh = ((cy0 + rp)[..., None] == jnp.arange(sp_r)) & valid[None, :, None]
-    cols_oh = (cx0 + cp)[..., None] == jnp.arange(sp_c)
-    hist = jnp.einsum("tnr,tnc->trc", rows_oh.astype(jnp.bfloat16),
-                      cols_oh.astype(jnp.bfloat16),
-                      preferred_element_type=jnp.float32)
-    # live metric rows end at n_rows-1 (the ind mask); bound the chunk sweep
-    scores = pallas_match.correlate_volume(hist, metric_pad, grid.n_rows, half)
-
-    # Count volume analytically: the in-bounds test separates into row and
-    # column conditions, so counts[t, dy, dx] = sum_n row_ok * col_ok is a
-    # tiny (T,N,W)x(T,N,W) mask einsum — no correlation needed.
-    offsets = jnp.arange(2 * half + 1) - half
-    row_idx = cy0[..., None] + offsets                 # (T, N, W)
-    col_idx = cx0[..., None] + offsets
-    row_ok = ((row_idx >= 1) & (row_idx < grid.n_rows - 1)
-              & valid[None, :, None]).astype(jnp.float32)
-    col_ok = ((col_idx >= 1) & (col_idx < grid.n_cols - 1)).astype(jnp.float32)
-    counts = jnp.einsum("tnr,tnc->trc", row_ok, col_ok)
-    return scores, counts
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class ScoreVolume(NamedTuple):
@@ -101,20 +45,12 @@ class ScoreVolume(NamedTuple):
     half: int               # static — W = 2*half + 1
 
 
-def build_score_volume(metric: jnp.ndarray, grid: OccGrid,
-                       scan_x: jnp.ndarray, scan_y: jnp.ndarray,
-                       valid: jnp.ndarray, base_pose: jnp.ndarray,
-                       n_theta: int = 9, theta_step: float = 0.004363,
-                       half: int = 8, impl: str = "auto") -> ScoreVolume:
-    """Build the (n_theta, W, W) correlation volume around ``base_pose``.
-
-    impl: 'auto' (fused Pallas kernel on TPU, jnp elsewhere), 'pallas', 'jnp'.
-    """
-    w = 2 * half + 1
+def base_cells(grid: OccGrid, scan_x: jnp.ndarray, scan_y: jnp.ndarray,
+               base_pose: jnp.ndarray, n_theta: int, theta_step: float
+               ) -> tuple[jnp.ndarray, jnp.ndarray]:
+    """0-based (T, N) column/row cells of every beam at every theta bin."""
     t_half = n_theta // 2
-    s = metric.shape[0]                      # fixed grid array side
     ipixel = jnp.float32(1.0 / grid.pixel)
-
     thetas = base_pose[2] + (jnp.arange(n_theta, dtype=jnp.float32) - t_half) * theta_step
     ct = jnp.cos(thetas)[:, None]            # (T, 1)
     st = jnp.sin(thetas)[:, None]
@@ -126,57 +62,46 @@ def build_score_volume(metric: jnp.ndarray, grid: OccGrid,
     offx = (base_pose[0] - grid.origin[0]) * ipixel
     offy = (base_pose[1] - grid.origin[1]) * ipixel
     # base cells, 0-based into the fixed array (ref 1-based minus 1)
-    cx0 = roundf_like(rx + offx).astype(jnp.int32)    # (T, N)
+    cx0 = roundf_like(rx + offx).astype(jnp.int32)
     cy0 = roundf_like(ry + offy).astype(jnp.int32)
+    return cx0, cy0
 
-    # 'auto': the Pallas correlation kernel on TPU, the jnp row-slab path on
-    # CPU. The jnp path's batched one-hot matmul runs ~25% faster per step
-    # on v5e (3.0 vs 3.8 ms) but XLA's compile time for it is pathological
-    # and *variable* (2-10 minutes for the enclosing scan program); the
-    # kernel compiles in seconds, deterministically. Pass impl='jnp' to
-    # trade compile time for the last bit of step time.
-    if impl == "pallas" or (impl == "auto" and jax.default_backend() == "tpu"):
-        scores, counts = _volume_pallas(metric, grid, cx0, cy0, valid, half)
-        return ScoreVolume(scores=scores, counts=counts, base_pose=base_pose,
-                           theta_step=float(theta_step), ipixel=ipixel,
-                           half=half)
 
-    t, n = cx0.shape
-    flat_cx = cx0.reshape(t * n)
-    flat_cy = cy0.reshape(t * n)
+def _window_masks(grid: OccGrid, cx0, cy0, valid, half: int):
+    """(T, N, W) row/col in-bounds masks (reference bounds test, main.c:512:
+    0-based cell in [1, n-2]); invalid beams zero their row mask."""
+    offs = jnp.arange(2 * half + 1) - half
+    row_idx = cy0[..., None] + offs
+    col_idx = cx0[..., None] + offs
+    row_ok = ((row_idx >= 1) & (row_idx < grid.n_rows - 1)
+              & valid[None, :, None])
+    col_ok = (col_idx >= 1) & (col_idx < grid.n_cols - 1)
+    return row_idx, col_idx, row_ok, col_ok
 
-    # --- row-slab gather: rows [cy0-half, cy0+half] for every (bin, beam)
-    row_idx = flat_cy[:, None] + (jnp.arange(w) - half)[None, :]       # (TN, W)
-    row_ok = (row_idx >= 1) & (row_idx < grid.n_rows - 1)              # ref bounds
-    rows = jnp.take(metric, jnp.clip(row_idx, 0, s - 1).reshape(-1),
-                    axis=0, mode="clip").reshape(t * n, w, s)          # (TN, W, S)
 
-    # --- banded one-hot column select on the MXU: (TN, W, S) @ (TN, S, W)
-    col_targets = flat_cx[:, None] + (jnp.arange(w) - half)[None, :]   # (TN, W)
-    col_ok = (col_targets >= 1) & (col_targets < grid.n_cols - 1)
-    # One-hot column-select matmul. On TPU the operands go through bf16 —
-    # the one-hot is exact in bf16 and XLA compiles the f32 batched matmul
-    # pathologically slowly (~30x compile time); the ~0.4% value rounding on
-    # gathered distances is far below the scoring noise floor. On CPU keep
-    # f32 so tests can pin exact equality against direct gathers.
-    mm_dtype = jnp.bfloat16 if jax.default_backend() == "tpu" else jnp.float32
-    onehot = (jnp.arange(s)[None, :, None] == col_targets[:, None, :])
-    onehot = (onehot & col_ok[:, None, :]).astype(mm_dtype)            # (TN, S, W)
-    patches = jnp.einsum("brw,bwc->brc", rows.astype(mm_dtype), onehot,
-                         preferred_element_type=jnp.float32)           # (TN, W, W)
-
-    # --- masked accumulation over beams
-    vmask = valid.astype(jnp.float32)
-    vmask = jnp.tile(vmask, (t,)).reshape(t * n)
-    row_m = row_ok.astype(jnp.float32) * vmask[:, None]                # (TN, W)
-    col_m = col_ok.astype(jnp.float32)
-    patches = patches * row_m[:, :, None]
-    scores = jnp.sum(patches.reshape(t, n, w, w), axis=1)              # (T, W, W)
-    counts = jnp.einsum("br,bc->brc", row_m, col_m).reshape(t, n, w, w).sum(axis=1)
-
+def build_score_volume(metric: jnp.ndarray, grid: OccGrid,
+                       scan_x: jnp.ndarray, scan_y: jnp.ndarray,
+                       valid: jnp.ndarray, base_pose: jnp.ndarray,
+                       n_theta: int = 9, theta_step: float = 0.004363,
+                       half: int = 8) -> ScoreVolume:
+    """Build the (n_theta, W, W) correlation volume around ``base_pose``."""
+    s = metric.shape[0]
+    cx0, cy0 = base_cells(grid, scan_x, scan_y, base_pose, n_theta,
+                          theta_step)
+    row_idx, col_idx, row_ok, col_ok = _window_masks(grid, cx0, cy0, valid,
+                                                     half)
+    # per-beam (W, W) window of the field, masked and summed over beams
+    patches = metric[jnp.clip(row_idx, 0, s - 1)[..., :, None],
+                     jnp.clip(col_idx, 0, s - 1)[..., None, :]]  # (T,N,W,W)
+    inb = row_ok[..., :, None] & col_ok[..., None, :]
+    scores = jnp.sum(jnp.where(inb, patches, 0.0), axis=1)
+    # counts separate into row and column conditions:
+    # counts[t, dy, dx] = sum_n row_ok[t, n, dy] * col_ok[t, n, dx]
+    counts = jnp.einsum("tnr,tnc->trc", row_ok.astype(jnp.float32),
+                        col_ok.astype(jnp.float32), precision=HIGHEST)
     return ScoreVolume(scores=scores, counts=counts,
                        base_pose=base_pose, theta_step=float(theta_step),
-                       ipixel=ipixel, half=half)
+                       ipixel=jnp.float32(1.0 / grid.pixel), half=half)
 
 
 def downsample_metric(metric: jnp.ndarray, grid: OccGrid, factor: int
@@ -267,11 +192,8 @@ def lookup_avg_distance(vol: ScoreVolume, poses: jnp.ndarray) -> jnp.ndarray:
     """Average field distance for candidate poses (..., 3) via trilinear
     interpolation into the volume. Out-of-window poses clamp to the edge.
 
-    TPU note: the 8 corner lookups are performed as one weighted one-hot
-    matmul against the flattened (score, count) table instead of 16 scalar
-    gathers per pose — XLA's gather unit runs ~100 M lookups/s, which made
-    this the second-hottest op in the PF step (0.13 ms at 1k particles); the
-    matmul form is ~5x faster. The one-hot contraction is exact in f32
+    The 8 corner lookups are one weighted one-hot contraction against the
+    flattened (score, count) table; at HIGHEST precision it is exact in f32
     (every dot row has <= 8 nonzero products), preserving the
     ratio-of-interpolants semantics.
     """
@@ -309,6 +231,6 @@ def lookup_avg_distance(vol: ScoreVolume, poses: jnp.ndarray) -> jnp.ndarray:
                                       wgt[..., None], 0.0)
     out = jax.lax.dot_general(
         acc.reshape(-1, tww), table, (((1,), (0,)), ((), ())),
-        precision=jax.lax.Precision.HIGHEST)                    # (B, 2)
+        precision=HIGHEST)                                      # (B, 2)
     out = out.reshape(poses.shape[:-1] + (2,))
     return out[..., 0] / jnp.maximum(out[..., 1], 1.0)

@@ -6,18 +6,17 @@ occupied cell, clamped to MAX_DIST = 10 px; occupied cells get 0
 an O(W*H*W*H) brute-force double scan (89.98% of total runtime, dissertation
 p.33); the FPGA variant offloads exactly this loop.
 
-TPU-native design: the clamp is the gift. Squared Euclidean distance
-separates, so the clamped EDT is exact as two 1-D windowed min-passes with a
-window of +-R (R = 10):
+Design: the clamp is the gift. Squared Euclidean distance separates, so the
+clamped EDT is exact as two 1-D windowed min-passes with a window of +-R
+(R = 10):
 
     d1[y, x]  = min_{|dx| <= R} (occ[y, x+dx] ? dx^2 : INF)
     d2[y, x]  = min_{|dy| <= R} (d1[y+dy, x] + dy^2)
     out[y, x] = occ[y, x] ? 0 : min(sqrt(d2), R)
 
-(2R+1 shifted mins per pass instead of (2R+1)^2, fully vectorized on the VPU;
-any true distance > R clamps to R, so no occupied cell outside the window can
-change the result.) ``edt_clamped`` is the jnp form (XLA fuses the shift
-stack); ``ops/pallas_edt.py`` holds the single-kernel VMEM-resident version.
+(2R+1 shifted mins per pass instead of (2R+1)^2, all elementwise; any true
+distance > R clamps to R, so no occupied cell outside the window can change
+the result.) ``edt_clamped`` is the jnp form: XLA fuses the shift stack.
 ``edt_clamped_reference`` is the O(N^4)-faithful oracle used by tests, kept in
 numpy so its cost stays off the hot path.
 """
@@ -78,19 +77,6 @@ def edt_clamped(occ: jnp.ndarray, max_dist: int = 10) -> jnp.ndarray:
 
     dist = jnp.minimum(jnp.sqrt(jnp.minimum(d2, _INF)), max_f)
     return jnp.where(occ, jnp.float32(0.0), quantize_metric(dist))
-
-
-def edt(occ: jnp.ndarray, max_dist: int = 10) -> jnp.ndarray:
-    """Backend dispatcher: the fused Pallas kernel on TPU, jnp elsewhere.
-
-    (Both are exact; the Pallas kernel keeps the whole transform VMEM-resident
-    — the role the reference's FPGA co-processor played, SURVEY §2.2 N3/N4.)
-    """
-    if jax.default_backend() == "tpu":
-        from lidar_slam_tpu.ops import pallas_edt
-
-        return pallas_edt.edt_clamped_pallas(occ, max_dist)
-    return edt_clamped(occ, max_dist)
 
 
 @functools.partial(jax.jit, static_argnames=("max_dist",))

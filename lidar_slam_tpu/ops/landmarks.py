@@ -7,7 +7,7 @@ the raw lidar scan itself, so `run --mode ekf` consumes the same ranges CSV as
 every other mode (the reference's dataset format, Subsystem_1/main.c:22-30).
 
 Detector: free-standing pillars/posts appear as short runs of beams whose
-range drops well below both adjacent background segments. TPU-native design —
+range drops well below both adjacent background segments. Design —
 no data-dependent loops:
 
 1. segment the beam array at range discontinuities (|dr| > gap) and validity

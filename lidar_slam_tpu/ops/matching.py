@@ -19,7 +19,7 @@ Reference behaviors reproduced exactly (they shape the trajectory, SURVEY §3.2)
   main.c:515), while ``bestHits_size`` is the in-bounds count of the best
   candidate — the mismatch the reference's map update depends on.
 
-TPU-native design: all candidates are scored in one batched gather
+Design: all candidates are scored in one batched gather
 (``vmap``-free — pure broadcasting), so the same code scales from the
 reference's 27 candidates to full correlative windows and to thousands of
 particles via an extra leading axis.
@@ -122,7 +122,7 @@ def fast_match(metric: jnp.ndarray, grid: OccGrid,
     unpenalized far candidate that wins by a fraction of a pixel yanks the
     pose by multiple steps; (b) determinism — near-tie argmin flips between
     *distant* poses amplify one-ulp backend differences into meters of
-    trajectory divergence (observed CPU-vs-TPU on building-3800). A genuinely
+    trajectory divergence (observed across backends on building-3800). A genuinely
     better far candidate (e.g. during a fast turn, where +-2 theta wins by
     hundreds of px) clears the penalty trivially. window=1 is untouched —
     bit-exact reference parity.

@@ -8,7 +8,7 @@ consecutive scans with only 1-2 corner detections in view) the filter is
 under-constrained and a 1e-5-level input perturbation forks the trajectory
 by meters.
 
-This module supplies the missing motion prior the TPU-native way: relative
+This module supplies the missing motion prior in batch form: relative
 poses between consecutive scans are INDEPENDENT given the raw log, so all
 T-1 pair matches run as one batched pre-pass before the sequential filter —
 a vmapped raster + separable EDT + iterative 27-candidate descent per pair,

@@ -1,10 +1,10 @@
 """Device-mesh construction for multi-chip / multi-host scaling.
 
 The reference's only "distribution" is an HTTP relay chain and an FPGA
-register interface (SURVEY §2.4). The TPU framework scales instead by
+register interface (SURVEY §2.4). This framework scales instead by
 sharding the particle axis (data-parallel analog) and map blocks (spatial
 analog) over a ``jax.sharding.Mesh``, with resampling and halo exchange as
-ICI collectives.
+collectives between devices (NVLink between the GPUs of one host).
 
 Axes:
 - ``particles``: the batch-like axis; propagation/scoring shard cleanly.

@@ -1,13 +1,12 @@
 """Multi-host initialization and scaling-run helpers.
 
 The reference's "distribution" is a hand-rolled HTTP topology with hardcoded
-IPs (esp32_edge.c:59, ESP32_Server.c:58). The TPU equivalent is
+IPs (esp32_edge.c:59, ESP32_Server.c:58). The equivalent here is
 ``jax.distributed`` + a global mesh over all hosts' devices; particle shards
-ride DCN between hosts and ICI within a slice.
+ride the network between hosts and NVLink between the GPUs of one host.
 
-On a single-host machine (this container), `initialize()` is a no-op and the
-same code paths run over the local devices — the multi-host configuration is
-exercised by the driver's virtual-device dry run.
+On a single host, `initialize()` is a no-op and the same code paths run over
+the local devices.
 """
 
 from __future__ import annotations
@@ -23,20 +22,18 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
     """Initialize jax.distributed when running under a multi-host launcher.
 
     Resolution order: explicit args > JAX_COORDINATOR_ADDRESS env (with
-    JAX_NUM_PROCESSES / JAX_PROCESS_ID) > TPU pod metadata (automatic inside
-    jax.distributed.initialize) > single-process no-op.
+    JAX_NUM_PROCESSES / JAX_PROCESS_ID) > single-process no-op. Nothing
+    discovers a cluster on its own: the coordinator address, process count
+    and process id are always given.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
-    if coordinator is None and os.environ.get("TPU_WORKER_HOSTNAMES") in (None, "", "localhost"):
+    if coordinator is None:
         return  # single host
-    kwargs = {}
-    if coordinator:
-        kwargs["coordinator_address"] = coordinator
-        kwargs["num_processes"] = int(
-            num_processes or os.environ.get("JAX_NUM_PROCESSES", 1))
-        kwargs["process_id"] = int(
-            process_id or os.environ.get("JAX_PROCESS_ID", 0))
-    jax.distributed.initialize(**kwargs)
+    jax.distributed.initialize(
+        coordinator_address=coordinator,
+        num_processes=int(num_processes
+                          or os.environ.get("JAX_NUM_PROCESSES", 1)),
+        process_id=int(process_id or os.environ.get("JAX_PROCESS_ID", 0)))
 
 
 def global_particle_mesh(n_map_shards: int = 1):
@@ -52,8 +49,8 @@ def scaling_report(ranges: np.ndarray, n_particles: int = 1024,
                    **particle_overrides) -> dict:
     """Throughput at several particle-shard counts (for the scaling table).
 
-    On real multi-chip hardware this measures ICI scaling; on the virtual
-    CPU mesh it validates that the sharded program runs at every size.
+    On several GPUs this measures cross-device scaling; on the virtual CPU
+    mesh it validates that the sharded program runs at every size.
     """
     import dataclasses
     import time

@@ -4,7 +4,7 @@ Design (SURVEY §7.3 "Distributed systematic resampling"): each shard holds
 P/D particles. The global inverse-CDF lookup needs the *global* weight
 prefix-sum; particle payload exchange is an all-gather (particle state is
 tiny — pose+weight is 16 bytes — so at practical particle counts the gather
-rides ICI far below the EDT's cost; a ppermute-based exchange is the upgrade
+rides the device interconnect far below the EDT's cost; a ppermute-based exchange is the upgrade
 path if payloads ever grow maps).
 
 Written with ``shard_map`` so the collectives (psum / all_gather) are explicit

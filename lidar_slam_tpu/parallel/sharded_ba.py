@@ -32,7 +32,7 @@ Gauge: pose 0 (and inactive poses) are handled as *exact* constraints
 (matvec masks fixed rows/columns, identity diagonal) instead of the dense
 path's 1e6 prior — a 1e6 diagonal entry would wreck CG conditioning.
 
-Collectives used: ``psum`` only — ICI-friendly; nothing communicated ever
+Collectives used: ``psum`` only; nothing communicated ever
 exceeds O(K + L) blocks.
 """
 
@@ -47,6 +47,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 from lidar_slam_tpu.core import se2
 from lidar_slam_tpu.models.ba import BAProblem, _inv2, _obs_residual, _odo_residual
+
+# f32 contractions run at full precision on every backend (no TF32)
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def make_graph_mesh(devices=None) -> Mesh:
@@ -124,22 +127,26 @@ def _ba_kernel(poses0, lms0, pose_active, lm_active,
         (ji, jj) = odo_jac(xi, xj, odo_z)
         ro = odo_res(xi, xj, odo_z)
         wo = odo_w * odo_active[:, None]
-        h_ii = jnp.einsum("eab,ea,eac->ebc", ji, wo, ji)      # (E, 3, 3)
-        h_jj = jnp.einsum("eab,ea,eac->ebc", jj, wo, jj)
-        h_ij = jnp.einsum("eab,ea,eac->ebc", ji, wo, jj)
-        b_i = jnp.einsum("eab,ea,ea->eb", ji, wo, ro)
-        b_j = jnp.einsum("eab,ea,ea->eb", jj, wo, ro)
+        h_ii = jnp.einsum("eab,ea,eac->ebc", ji, wo, ji,
+                          precision=HIGHEST)              # (E, 3, 3)
+        h_jj = jnp.einsum("eab,ea,eac->ebc", jj, wo, jj, precision=HIGHEST)
+        h_ij = jnp.einsum("eab,ea,eac->ebc", ji, wo, jj, precision=HIGHEST)
+        b_i = jnp.einsum("eab,ea,ea->eb", ji, wo, ro, precision=HIGHEST)
+        b_j = jnp.einsum("eab,ea,ea->eb", jj, wo, ro, precision=HIGHEST)
 
         xo = poses[obs_i]
         lo = lms[obs_j]
         (jp_, jl) = obs_jac(xo, lo, obs_z)
         rv = obs_res(xo, lo, obs_z)
         wv = obs_w * obs_active[:, None]
-        hpp_o = jnp.einsum("fab,fa,fac->fbc", jp_, wv, jp_)   # (F, 3, 3)
-        hll_o = jnp.einsum("fab,fa,fac->fbc", jl, wv, jl)     # (F, 2, 2)
-        hpl_o = jnp.einsum("fab,fa,fac->fbc", jp_, wv, jl)    # (F, 3, 2)
-        bp_o = jnp.einsum("fab,fa,fa->fb", jp_, wv, rv)
-        bl_o = jnp.einsum("fab,fa,fa->fb", jl, wv, rv)
+        hpp_o = jnp.einsum("fab,fa,fac->fbc", jp_, wv, jp_,
+                           precision=HIGHEST)             # (F, 3, 3)
+        hll_o = jnp.einsum("fab,fa,fac->fbc", jl, wv, jl,
+                           precision=HIGHEST)             # (F, 2, 2)
+        hpl_o = jnp.einsum("fab,fa,fac->fbc", jp_, wv, jl,
+                           precision=HIGHEST)             # (F, 3, 2)
+        bp_o = jnp.einsum("fab,fa,fa->fb", jp_, wv, rv, precision=HIGHEST)
+        bl_o = jnp.einsum("fab,fa,fa->fb", jl, wv, rv, precision=HIGHEST)
 
         # --- assembled SMALL systems (K- and L-shaped only; psum completes
         # every row across shards — the factor blocks themselves never leave
@@ -162,9 +169,11 @@ def _ba_kernel(poses0, lms0, pose_active, lm_active,
 
         # --- reduced RHS: b_red = bp - U^T Hll^-1 bl, factor-wise (exact:
         # the correction is linear in U = sum of per-factor (3, 2) blocks)
-        zb = jnp.einsum("lab,lb->la", hll_inv, bl)            # (L, 2)
+        zb = jnp.einsum("lab,lb->la", hll_inv, bl,
+                        precision=HIGHEST)                # (L, 2)
         corr = jnp.zeros((kmax, 3), jnp.float32).at[obs_i].add(
-            jnp.einsum("fab,fb->fa", hpl_o, zb[obs_j]), mode="drop")
+            jnp.einsum("fab,fb->fa", hpl_o, zb[obs_j],
+                       precision=HIGHEST), mode="drop")
         b_red = bp - jax.lax.psum(corr, axis_name)
         rhs = jnp.where(fixed[:, None], 0.0, -b_red)          # (K, 3)
 
@@ -177,7 +186,8 @@ def _ba_kernel(poses0, lms0, pose_active, lm_active,
         dpp = dpp.at[odo_j].add(h_jj, mode="drop")
         dpp = dpp.at[obs_i].add(hpp_o, mode="drop")
         sdiag_f = jnp.einsum("fab,fbc,fdc->fad", hpl_o, hll_inv[obs_j],
-                             hpl_o)                            # (F, 3, 3)
+                             hpl_o,
+                                 precision=HIGHEST)       # (F, 3, 3)
         dpp = dpp.at[obs_i].add(-sdiag_f, mode="drop")
         dpp = jax.lax.psum(dpp, axis_name)                     # (K, 3, 3)
         dblocks = jnp.where(fixed[:, None, None], eye3[None],
@@ -191,28 +201,33 @@ def _ba_kernel(poses0, lms0, pose_active, lm_active,
             vm = v * notfix
             y = jnp.zeros((kmax, 3), jnp.float32)
             y = y.at[odo_i].add(
-                jnp.einsum("eab,eb->ea", h_ii, vm[odo_i])
-                + jnp.einsum("eab,eb->ea", h_ij, vm[odo_j]), mode="drop")
+                jnp.einsum("eab,eb->ea", h_ii, vm[odo_i], precision=HIGHEST)
+                + jnp.einsum("eab,eb->ea", h_ij, vm[odo_j],
+                             precision=HIGHEST), mode="drop")
             y = y.at[odo_j].add(
-                jnp.einsum("eba,eb->ea", h_ij, vm[odo_i])
-                + jnp.einsum("eab,eb->ea", h_jj, vm[odo_j]), mode="drop")
+                jnp.einsum("eba,eb->ea", h_ij, vm[odo_i], precision=HIGHEST)
+                + jnp.einsum("eab,eb->ea", h_jj, vm[odo_j],
+                             precision=HIGHEST), mode="drop")
             y = y.at[obs_i].add(
-                jnp.einsum("fab,fb->fa", hpp_o, vm[obs_i]), mode="drop")
+                jnp.einsum("fab,fb->fa", hpp_o, vm[obs_i],
+                           precision=HIGHEST), mode="drop")
             # Schur term: yl = U^T vm (per-landmark), zl = Hll^-1 yl,
             # y -= U zl. U spans shards, so yl must psum BEFORE Hll^-1.
             yl = jnp.zeros((lmax, 2), jnp.float32).at[obs_j].add(
-                jnp.einsum("fba,fb->fa", hpl_o, vm[obs_i]), mode="drop")
+                jnp.einsum("fba,fb->fa", hpl_o, vm[obs_i],
+                           precision=HIGHEST), mode="drop")
             y = jax.lax.psum(y, axis_name)
             yl = jax.lax.psum(yl, axis_name)
-            zl = jnp.einsum("lab,lb->la", hll_inv, yl)
+            zl = jnp.einsum("lab,lb->la", hll_inv, yl, precision=HIGHEST)
             y2 = jnp.zeros((kmax, 3), jnp.float32).at[obs_i].add(
-                jnp.einsum("fab,fb->fa", hpl_o, zl[obs_j]), mode="drop")
+                jnp.einsum("fab,fb->fa", hpl_o, zl[obs_j],
+                           precision=HIGHEST), mode="drop")
             y = y - jax.lax.psum(y2, axis_name)
             # exact constraints: identity on fixed rows, damping on free
             return y * notfix + v * fixed[:, None] + damping * vm
 
         def precond(r):
-            return jnp.einsum("kab,kb->ka", minv, r)
+            return jnp.einsum("kab,kb->ka", minv, r, precision=HIGHEST)
 
         # --- distributed PCG on S dp = rhs ----------------------------------
         x0 = jnp.zeros_like(rhs)
@@ -238,9 +253,10 @@ def _ba_kernel(poses0, lms0, pose_active, lm_active,
 
         # --- landmark back-substitution (replicated; L x tiny blocks) -------
         hlp_dp = jnp.zeros((lmax, 2), jnp.float32).at[obs_j].add(
-            jnp.einsum("fba,fb->fa", hpl_o, dp[obs_i]), mode="drop")
+            jnp.einsum("fba,fb->fa", hpl_o, dp[obs_i],
+                       precision=HIGHEST), mode="drop")
         hlp_dp = jax.lax.psum(hlp_dp, axis_name)
-        dl = jnp.einsum("lab,lb->la", hll_inv, -bl - hlp_dp)
+        dl = jnp.einsum("lab,lb->la", hll_inv, -bl - hlp_dp, precision=HIGHEST)
         dl = dl * lm_active[:, None]
 
         new_poses = poses + dp

@@ -7,7 +7,7 @@ row-block sharding:
 - pass 1 (windowed min along x) is row-local: zero communication;
 - pass 2 (windowed min along y) needs exactly R = max_dist rows of the
   pass-1 result from each neighbor: one bidirectional ``ppermute`` halo
-  exchange over ICI, R * S * 4 bytes per direction — independent of the
+  exchange between devices, R * S * 4 bytes per direction — independent of the
   number of shards, so the transform scales to arbitrarily large maps
   (the reference's fixed 400x400 cap exists because its EDT is O(N^4);
   here the cap is total HBM).

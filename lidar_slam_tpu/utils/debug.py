@@ -1,4 +1,4 @@
-"""Debug-assert mode: the TPU-native analog of the sanitizer layer the
+"""Debug-assert mode: the JAX analog of the sanitizer layer the
 reference never had.
 
 SURVEY §5 lists the reference's latent memory hazards a sanitizer would have
@@ -15,7 +15,7 @@ makes those checkable:
   normalizable). Cheap enough to run per-chunk in host loops.
 - :func:`checked` — wraps a jittable step with ``jax.experimental.checkify``
   so NaN production and division-by-zero are caught INSIDE the compiled
-  program and reported with location, on TPU as on CPU (the ASan/UBSan
+  program and reported with location, on GPU as on CPU (the ASan/UBSan
   analog; out-of-bounds checks are opt-in because the pipeline uses
   intentional clamp/drop indexing).
 - ``run --debug-checks`` (CLI) audits the final state and trajectory of any

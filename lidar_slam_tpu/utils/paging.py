@@ -3,7 +3,7 @@
 The device-resident ``SubmapAtlas`` holds M submaps; an unbounded environment
 produces arbitrarily many. This module archives cold submaps (anchor far from
 the robot) to host memory and reloads them when the trajectory returns — the
-TPU footprint stays M * Ns points forever. Paging runs on the host between
+device footprint stays M * Ns points forever. Paging runs on the host between
 jitted steps (it is keyframe-rate work on ~1 MB arrays; the hot per-scan path
 never touches it), the same host/device split the reference's "edge offload"
 variant used for its cheap front-end (``Submodule_2/esp32_edge.c``,

@@ -1,9 +1,8 @@
-"""Correlation-volume scoring: math properties + pallas/jnp equivalence."""
+"""Correlation-volume scoring: math properties + exactness vs float64."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from lidar_slam_tpu.core.gridmap import OccGrid
 from lidar_slam_tpu.ops import correlative
@@ -27,7 +26,7 @@ def test_volume_matches_direct_scoring():
     metric, grid, sx, sy, valid = _toy_grid()
     base = jnp.asarray([0.2, -0.1, 0.3], jnp.float32)
     vol = correlative.build_score_volume(metric, grid, sx, sy, valid, base,
-                                         n_theta=3, half=4, impl="jnp")
+                                         n_theta=3, half=4)
     # direct: project at the base pose, sum metric under shifted cells
     from lidar_slam_tpu.ops import matching
 
@@ -44,26 +43,11 @@ def test_volume_matches_direct_scoring():
             float(jnp.sum(inb)), rel=1e-6)
 
 
-def test_pallas_volume_matches_jnp():
-    metric, grid, sx, sy, valid = _toy_grid(seed=3)
-    base = jnp.asarray([-0.3, 0.4, -0.2], jnp.float32)
-    vol_jnp = correlative.build_score_volume(metric, grid, sx, sy, valid, base,
-                                             n_theta=5, half=4, impl="jnp")
-    with pltpu.force_tpu_interpret_mode():
-        vol_pl = correlative.build_score_volume(metric, grid, sx, sy, valid,
-                                                base, n_theta=5, half=4,
-                                                impl="pallas")
-    np.testing.assert_allclose(np.asarray(vol_pl.scores),
-                               np.asarray(vol_jnp.scores), rtol=2e-5, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(vol_pl.counts),
-                               np.asarray(vol_jnp.counts), rtol=1e-6, atol=1e-3)
-
-
 def test_trilinear_lookup_interpolates():
     metric, grid, sx, sy, valid = _toy_grid(seed=5)
     base = jnp.asarray([0.0, 0.0, 0.0], jnp.float32)
     vol = correlative.build_score_volume(metric, grid, sx, sy, valid, base,
-                                         n_theta=3, half=4, impl="jnp")
+                                         n_theta=3, half=4)
     # at exactly the base pose the lookup hits the volume center
     d0 = float(correlative.lookup_avg_distance(vol, base[None])[0])
     want = float(vol.scores[1, 4, 4] / jnp.maximum(vol.counts[1, 4, 4], 1.0))
@@ -77,57 +61,57 @@ def test_trilinear_lookup_interpolates():
     assert d_half == pytest.approx(float(s_mid / c_mid), rel=1e-4)
 
 
-def test_pallas_volume_wide_window_matches_jnp():
-    """half=14 (wider than one sublane tile, the loop-closure window) over a
-    multi-chunk grid — regression for the kernel's generalized padding.
-    Shapes scaled down: interpret mode pays per-offset python cost."""
-    rng = np.random.default_rng(11)
-    s = 96
-    metric = jnp.asarray(rng.random((s, s)), jnp.float32) * 10.0
+def _lattice_case(s, n_rows, n_cols, origin, pixel, lo, hi, n, seed):
+    """Field on the 2^-10 lattice in [0, 10] (what the EDT produces), so
+    every per-beam sum is exact in f32 whatever the summation order."""
+    from lidar_slam_tpu.ops import edt
+
+    rng = np.random.default_rng(seed)
+    metric = edt.quantize_metric(
+        jnp.asarray(rng.random((s, s)), jnp.float32) * 10.0)
     grid = OccGrid(occ=jnp.zeros((s, s), jnp.bool_),
-                   n_rows=jnp.int32(s), n_cols=jnp.int32(s),
-                   origin=jnp.asarray([-9.6, -9.6], jnp.float32), pixel=0.2)
-    n = 64
-    sx = jnp.asarray(rng.uniform(-8, 8, n), jnp.float32)
-    sy = jnp.asarray(rng.uniform(-8, 8, n), jnp.float32)
+                   n_rows=jnp.int32(n_rows), n_cols=jnp.int32(n_cols),
+                   origin=jnp.asarray([origin, origin], jnp.float32),
+                   pixel=pixel)
+    sx = jnp.asarray(rng.uniform(lo, hi, n), jnp.float32)
+    sy = jnp.asarray(rng.uniform(lo, hi, n), jnp.float32)
     valid = jnp.asarray(rng.random(n) < 0.9)
-    base = jnp.asarray([0.3, -0.2, 0.15], jnp.float32)
-    vol_jnp = correlative.build_score_volume(
-        metric, grid, sx, sy, valid, base, n_theta=3,
-        theta_step=0.008727, half=14, impl="jnp")
-    with pltpu.force_tpu_interpret_mode():
-        vol_pl = correlative.build_score_volume(
-            metric, grid, sx, sy, valid, base, n_theta=3,
-            theta_step=0.008727, half=14, impl="pallas")
-    np.testing.assert_allclose(np.asarray(vol_pl.scores),
-                               np.asarray(vol_jnp.scores), rtol=2e-5, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(vol_pl.counts),
-                               np.asarray(vol_jnp.counts), atol=1e-3)
+    return metric, grid, sx, sy, valid
 
 
-def test_pallas_volume_large_array_small_region_matches_jnp():
-    """Full-size fixed array with a small active region (the common case)."""
-    rng = np.random.default_rng(9)
-    s = 400
-    metric = jnp.asarray(rng.random((s, s)), jnp.float32) * 10.0
-    grid = OccGrid(occ=jnp.zeros((s, s), jnp.bool_),
-                   n_rows=jnp.int32(120), n_cols=jnp.int32(100),
-                   origin=jnp.asarray([-3.0, -3.0], jnp.float32), pixel=0.1)
-    n = 48
-    sx = jnp.asarray(rng.uniform(0, 6, n), jnp.float32)
-    sy = jnp.asarray(rng.uniform(0, 6, n), jnp.float32)
-    valid = jnp.asarray(rng.random(n) < 0.9)
-    base = jnp.asarray([0.5, 0.5, 0.1], jnp.float32)
-    vol_jnp = correlative.build_score_volume(metric, grid, sx, sy, valid, base,
-                                             n_theta=3, half=2, impl="jnp")
-    with pltpu.force_tpu_interpret_mode():
-        vol_pl = correlative.build_score_volume(metric, grid, sx, sy, valid,
-                                                base, n_theta=3, half=2,
-                                                impl="pallas")
-    np.testing.assert_allclose(np.asarray(vol_pl.scores),
-                               np.asarray(vol_jnp.scores), rtol=2e-5, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(vol_pl.counts),
-                               np.asarray(vol_jnp.counts), atol=1e-3)
+@pytest.mark.parametrize("case", [
+    # toy grid, partial active region
+    dict(s=64, n_rows=60, n_cols=58, origin=-3.0, pixel=0.1, lo=-2, hi=2,
+         n=64, seed=3, base=[-0.3, 0.4, -0.2], n_theta=5, step=0.004363,
+         half=4),
+    # wide window (the loop-closure half=14) over a larger grid
+    dict(s=96, n_rows=96, n_cols=96, origin=-9.6, pixel=0.2, lo=-8, hi=8,
+         n=64, seed=11, base=[0.3, -0.2, 0.15], n_theta=3, step=0.008727,
+         half=14),
+    # full-size fixed array with a small active region (the common case)
+    dict(s=400, n_rows=120, n_cols=100, origin=-3.0, pixel=0.1, lo=0, hi=6,
+         n=48, seed=9, base=[0.5, 0.5, 0.1], n_theta=3, step=0.004363,
+         half=2),
+])
+def test_volume_exact_vs_float64_window_sum(case):
+    """Scores and counts equal a float64 per-beam window sum bit for bit
+    (the reference the GPU smoke test holds the card to)."""
+    from chip_smoke import volume_reference
+
+    metric, grid, sx, sy, valid = _lattice_case(
+        case["s"], case["n_rows"], case["n_cols"], case["origin"],
+        case["pixel"], case["lo"], case["hi"], case["n"], case["seed"])
+    base = jnp.asarray(case["base"], jnp.float32)
+    vol = correlative.build_score_volume(
+        metric, grid, sx, sy, valid, base, n_theta=case["n_theta"],
+        theta_step=case["step"], half=case["half"])
+    cx0, cy0 = correlative.base_cells(grid, sx, sy, base, case["n_theta"],
+                                      case["step"])
+    want_s, want_c = volume_reference(metric, grid, cx0, cy0, valid,
+                                      case["half"])
+    assert np.array_equal(np.asarray(vol.scores, np.float64), want_s)
+    assert np.array_equal(np.asarray(vol.counts, np.float64), want_c)
+    assert want_c.sum() > 0   # the case does exercise in-bounds beams
 
 
 def test_windowed_fast_match_default_is_reference_27():

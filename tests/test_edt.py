@@ -17,13 +17,21 @@ from lidar_slam_tpu.ops import edt
     ((32, 48), 0.05, 2),
     ((64, 64), 0.02, 3),
     ((64, 64), 0.0, 4),   # empty grid: everything clamps to MAX_DIST
+    ((200, 200), 0.01, 0),
+    ((400, 400), 0.005, 1),
+    ((64, 128), 0.1, 2),
+    ((64, 128), 0.0, 5),
 ])
 def test_edt_matches_oracle(shape, density, seed):
+    """Exact against the brute-force reference and the C++ EDT."""
+    from lidar_slam_tpu import native
+
     rng = np.random.default_rng(seed)
     occ = rng.random(shape) < density
     want = edt.edt_clamped_reference(occ, 10.0)
     got = np.asarray(edt.edt_clamped(occ, 10))
-    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, native.edt_native(occ, 10.0))
 
 
 def test_edt_single_obstacle_exact_values():

@@ -1,8 +1,8 @@
 """Hybrid grid+landmark EKF-FastSLAM (models/ekf_hybrid.py).
 
 The round-4 finding this model closes: the pure landmark filter is
-corridor-blind between corner sightings (museum-1000 ATE 0.785 m,
-BENCH_r04.json) while its grid-PF sibling runs 0.065 m on the same tour.
+corridor-blind between corner sightings (museum-1000 ATE 0.785 m)
+while its grid-PF sibling runs 0.065 m on the same tour.
 The hybrid fuses the correlation-volume grid likelihood into the particle
 weights; measured full-tour ATE 0.081 m (CPU, P=1024, 2026-08-21)."""
 

@@ -38,7 +38,7 @@ def test_effective_sample_size():
 
 def test_pf_tracks_ground_truth(small_dataset):
     ranges, gt = small_dataset
-    # small volume keeps the CPU test fast; TPU uses the full default
+    # small volume keeps the CPU test fast; the GPU uses the full default
     cfg = dataclasses.replace(
         DEFAULT_CONFIG,
         particles=ParticleConfig(n_particles=32, vol_theta_bins=5, vol_half=4))

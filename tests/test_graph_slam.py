@@ -6,17 +6,20 @@ import pytest
 from lidar_slam_tpu.config import DEFAULT_CONFIG
 from lidar_slam_tpu.io import simulate
 from lidar_slam_tpu.models import posegraph
-from lidar_slam_tpu.models.graph_slam import GraphSlam
+from lidar_slam_tpu.models.graph_slam import GraphSlam, LoopClosureConfig
 from lidar_slam_tpu.utils.metrics import ate
 
 
 
 pytestmark = pytest.mark.slow  # multi-minute integration runs; quick tier: -m "not slow"
 
+# XLA:CPU compiles the vmapped closure match slowly at wide batches
+CPU_LC = LoopClosureConfig(closure_batch=2, chunk_size=64)
+
 def test_graph_slam_closes_loops_on_loop_trajectory():
     ranges, gt = simulate.generate_dataset(
         n_scans=300, seed=1, waypoints=simulate.LOOP_WAYPOINTS)
-    gs = GraphSlam(DEFAULT_CONFIG)
+    gs = GraphSlam(DEFAULT_CONFIG, CPU_LC)
     path, opt_kf = gs.run(ranges)
 
     assert int(gs.kf.count) >= 10
@@ -46,7 +49,7 @@ def test_graph_closures_do_not_hurt_building_corridors():
     ranges, gt, _ = dataset.ensure_dataset(
         n_scans=simulate.BUILDING_N_SCANS, world="building")
     ranges, gt = ranges[:n], gt[:n]
-    gs = GraphSlam(BUILDING_WIDE_CONFIG)
+    gs = GraphSlam(BUILDING_WIDE_CONFIG, CPU_LC)
     path, _ = gs.run(ranges)
     fpath, _ = scan_matcher.run_scan(ranges, BUILDING_WIDE_CONFIG)
     g_err = float(ate(np.asarray(path), gt))
@@ -60,7 +63,7 @@ def test_graph_slam_feedback_keeps_tracking():
     pose re-anchoring) must not destabilize tracking."""
     ranges, gt = simulate.generate_dataset(
         n_scans=300, seed=1, waypoints=simulate.LOOP_WAYPOINTS)
-    gs = GraphSlam(DEFAULT_CONFIG)
+    gs = GraphSlam(DEFAULT_CONFIG, CPU_LC)
     path, _ = gs.run(ranges, feedback=True)
     assert len(gs.closures) >= 1
     assert ate(path, gt) < 0.1

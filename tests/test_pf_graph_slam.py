@@ -41,7 +41,11 @@ def test_pf_graph_closes_loop_and_tracks():
                                            waypoints=simulate.LOOP_WAYPOINTS)
     cfg = dataclasses.replace(
         DEFAULT_CONFIG, particles=ParticleConfig(n_particles=256))
-    path, opt, gs = run_pf_graph(ranges, cfg)
+    from lidar_slam_tpu.models.graph_slam import LoopClosureConfig
+
+    lc = LoopClosureConfig(weak_closures=True, closure_batch=2,
+                           chunk_size=64)
+    path, opt, gs = run_pf_graph(ranges, cfg, lc)
     assert len(gs.closures) >= 1, "no closures on a loop trajectory"
     err = float(ate(np.asarray(path), gt[: len(path)]))
     assert err < 0.15, f"PF-graph lost track: ATE {err:.3f}"

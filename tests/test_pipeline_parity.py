@@ -105,7 +105,7 @@ def test_building_3800_wide_window_solves_tour():
     """The solved building workload: the +-2 correlative window with the
     center-bias penalty keeps the frontend locked through the corridor turns
     that break the reference's fixed +-1 window (5.3 m ATE above). Swept
-    result: ATE 0.092 m on both CPU and TPU with identical trajectories."""
+    result: ATE 0.092 m, with identical trajectories across backends."""
     from lidar_slam_tpu.config import BUILDING_WIDE_CONFIG
     from lidar_slam_tpu.io import dataset, simulate
 

@@ -8,12 +8,17 @@ import pytest
 from lidar_slam_tpu.config import DEFAULT_CONFIG, SubmapConfig
 from lidar_slam_tpu.io import simulate
 from lidar_slam_tpu.models import posegraph
+from lidar_slam_tpu.models.graph_slam import LoopClosureConfig
 from lidar_slam_tpu.models.submap_graph_slam import SubmapGraphSlam
 from lidar_slam_tpu.utils.metrics import ate
 
 
 
 pytestmark = pytest.mark.slow  # multi-minute integration runs; quick tier: -m "not slow"
+
+# XLA:CPU compiles the vmapped closure match slowly at wide batches
+CPU_LC = LoopClosureConfig(closure_batch=2, chunk_size=64)
+
 
 def _cfg():
     return dataclasses.replace(
@@ -25,7 +30,7 @@ def _cfg():
 def test_submap_graph_slam_closes_and_reanchors():
     ranges, gt = simulate.generate_dataset(
         n_scans=300, seed=1, waypoints=simulate.LOOP_WAYPOINTS)
-    gs = SubmapGraphSlam(_cfg())
+    gs = SubmapGraphSlam(_cfg(), CPU_LC)
     path, opt_kf = gs.run(ranges)
 
     assert int(gs.kf.count) >= 10
@@ -54,7 +59,7 @@ def test_anchor_correction_consistency():
 
     ranges, gt = simulate.generate_dataset(
         n_scans=300, seed=1, waypoints=simulate.LOOP_WAYPOINTS)
-    gs = SubmapGraphSlam(_cfg())
+    gs = SubmapGraphSlam(_cfg(), CPU_LC)
     gs.run(ranges)
     if not gs.closures:
         return  # nothing optimized; covered by the test above

@@ -80,3 +80,34 @@ def test_supervised_pf_matches_unsupervised(tmp_path):
     assert report.completed and report.attempts == 1
     want, _ = fastslam.run_pf(ranges, cfg, seed=0)
     np.testing.assert_allclose(path, np.asarray(want), atol=1e-6)
+
+
+def test_supervisor_stays_off_the_device(tmp_path):
+    """The supervising process never initialises a JAX backend while its
+    worker runs: on a GPU the first process to touch the card reserves most
+    of its memory, and the worker would then fail for want of it."""
+    import subprocess
+    import sys
+
+    script = f"""
+import dataclasses
+from jax._src import xla_bridge
+from lidar_slam_tpu.config import DEFAULT_CONFIG, ParticleConfig
+from lidar_slam_tpu.io import simulate
+from lidar_slam_tpu.utils import watchdog
+ranges, _ = simulate.generate_dataset(n_scans=8, seed=0)
+cfg = dataclasses.replace(DEFAULT_CONFIG,
+                          particles=ParticleConfig(n_particles=16))
+path, report = watchdog.run_pf_supervised(
+    ranges, cfg, {str(tmp_path / "run")!r}, stall_timeout_s=300.0)
+assert report.completed, report
+assert path.shape == (8, 3)
+print("PARENT_BACKEND", xla_bridge.backends_are_initialized())
+"""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    out = subprocess.run([sys.executable, "-c", script], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "PARENT_BACKEND False" in out.stdout
